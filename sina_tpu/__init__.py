@@ -1,7 +1,7 @@
-"""sina-tpu: a TPU-native reference-based sequence aligner.
+"""sina-tpu: a reference-based sequence aligner on JAX.
 
 Re-implements the capabilities of SINA (the SILVA Incremental Aligner)
-as a batched JAX/Pallas engine: k-mer reference search, POA-graph NAST
+as a batched JAX engine with a CUDA kernel for the profile DP: k-mer reference search, POA-graph NAST
 alignment against a fixed reference MSA, homology search and LCA
 taxonomy classification.  See DESIGN.md for the architecture map.
 """

@@ -4,8 +4,8 @@ The reference's mesh_debug (/root/reference/src/mesh_debug.h:103-193,
 ``mesh_to_svg``) renders a column range of the DP mesh as a graphviz
 table: one cell per (master node, slave base) with the cell value,
 the delta to its backpointer cell, the gap-track values and the
-node/base labels, plus the backpointer edges.  On TPU the lattice
-normally lives and dies in HBM; this module re-runs the dense XLA
+node/base labels, plus the backpointer edges.  On the device the
+lattice normally lives and dies in device memory; this module re-runs the dense XLA
 oracle core with ``return_lattice=True`` (ops/align_kernel.py) for
 ONE query and emits the same kind of dump — a debug tool for small
 regions, not a production path.

@@ -232,17 +232,6 @@ def _bind(lib):
         np.ctypeslib.ndpointer(np.int64),
         ctypes.c_long,
     ]
-    lib.sina_pack_graph.restype = ctypes.c_long
-    lib.sina_pack_graph.argtypes = [
-        np.ctypeslib.ndpointer(np.int32),
-        np.ctypeslib.ndpointer(np.uint8),
-        np.ctypeslib.ndpointer(np.uint8),
-        np.ctypeslib.ndpointer(np.int64),
-        ctypes.c_long, ctypes.c_long, ctypes.c_long,
-        np.ctypeslib.ndpointer(np.int32),
-        np.ctypeslib.ndpointer(np.uint8),
-        ctypes.c_long,
-    ]
     lib.sina_fill_packed.restype = ctypes.c_long
     lib.sina_fill_packed.argtypes = [
         np.ctypeslib.ndpointer(np.int32),
@@ -321,29 +310,6 @@ def contains_batch(
     if rc != 0:
         return None
     return out[:n_total]
-
-
-def pack_graph(preds, is_start, is_end, n_real):
-    """Parallel graph-tensor packing (predecessor distance bitmask +
-    flag byte); returns (predbits (B,N) int32, flags (B,N) uint8) or
-    None when the native library is unavailable."""
-    lib = get_lib()
-    if lib is None:
-        return None
-    B, N, P = preds.shape
-    predbits = np.empty((B, N), np.int32)
-    flags = np.empty((B, N), np.uint8)
-    rc = lib.sina_pack_graph(
-        np.ascontiguousarray(preds, np.int32),
-        np.ascontiguousarray(is_start, np.uint8),
-        np.ascontiguousarray(is_end, np.uint8),
-        np.ascontiguousarray(n_real, np.int64),
-        B, N, P,
-        predbits, flags, _n_threads(),
-    )
-    if rc != 0:
-        return None
-    return predbits, flags
 
 
 def fill_packed(seq_kmers, seq_offsets, n_seqs: int, P) -> bool:

@@ -1022,55 +1022,6 @@ long sina_build_graphs(
     return err.load() ? -1 : 0;
 }
 
-// Graph-tensor packing for the Pallas graph kernel (the host side of
-// ops/graph_pallas.pack_graph_host): predecessor lists (B, N, P)
-// collapse to per-node distance bitmasks and the boolean planes fold
-// into one flag byte.  Parallel over batch rows.
-long sina_pack_graph(
-    const int* preds,            // (B, N, P)
-    const unsigned char* is_start,   // (B, N)
-    const unsigned char* is_end,     // (B, N)
-    const long long* n_real,         // (B,)
-    long B, long N, long P,
-    int* predbits,               // (B, N) out
-    unsigned char* flags,        // (B, N) out
-    long n_threads) {
-    long nt = n_threads > 0 ? n_threads : 1;
-    if (nt > B) nt = B > 0 ? B : 1;
-    std::atomic<long> next(0);
-    auto worker = [&]() {
-        for (;;) {
-            long b = next.fetch_add(1);
-            if (b >= B) break;
-            const int* pb = preds + (long long)b * N * P;
-            const unsigned char* sb = is_start + (long long)b * N;
-            const unsigned char* eb = is_end + (long long)b * N;
-            int* ob = predbits + (long long)b * N;
-            unsigned char* fb = flags + (long long)b * N;
-            long long nr = n_real[b];
-            for (long j = 0; j < N; ++j) {
-                unsigned int bits = 0;
-                const int* row = pb + (long long)j * P;
-                for (long p = 0; p < P; ++p) {
-                    int pr = row[p];
-                    if (pr < 0) continue;
-                    long d = j - pr;
-                    if (d > 0 && d < 32) bits |= (1u << d);
-                }
-                ob[j] = (int)bits;
-                fb[j] = (unsigned char)(
-                    (sb[j] ? 1 : 0) | (eb[j] ? 2 : 0)
-                    | ((j < nr) ? 4 : 0));
-            }
-        }
-    };
-    std::vector<std::thread> threads;
-    for (long t = 1; t < nt; ++t) threads.emplace_back(worker);
-    worker();
-    for (auto& th : threads) th.join();
-    return 0;
-}
-
 // Batched alignment-copy containment (the try_copy_alignment fast
 // path, semantics of align.cpp:328-389): for each query and each of
 // its family members, find the first offset at which the member's

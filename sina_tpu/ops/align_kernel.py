@@ -165,8 +165,7 @@ def poa_dp_subst(
     bits_q = [
         ((qmask >> s) & 1).astype(jnp.float32) for s in range(4)
     ]                                                  # 4 x (M,)
-    # explicit per-letter sums in the same f32 op order as the
-    # Pallas graph kernel (matrix mode) so both stay bit-exact
+    # explicit per-letter sums: a fixed f32 op order
     numer = jnp.zeros((N, M), dtype=jnp.float32)
     pn = jnp.zeros((N,), dtype=jnp.float32)
     pq = jnp.zeros((M,), dtype=jnp.float32)
@@ -271,9 +270,9 @@ def poa_dp_costs_windowed(
     predecessors all sit within `window` topo positions (true for
     MSA-derived POA graphs — measured max distance 18 at fs-max=40).
     The scan carries only a (window, M) ring of V/D rows instead of
-    the dense (N, M) lattices, pred rows come from a one-hot matmul
-    over the ring (MXU-sized), and backpointers stack as scan
-    outputs.  Bit-identical results to poa_dp_costs (tested)."""
+    the dense (N, M) lattices, pred rows are gathered from the ring,
+    and backpointers stack as scan outputs.  Bit-identical results to
+    poa_dp_costs (tested)."""
     N, M = n_nodes, m_len
     P = preds.shape[1]
     K = window
@@ -303,12 +302,11 @@ def poa_dp_costs_windowed(
         Vr, Dr, b2v, b2j, b2i = carry
         (subj, wd_o, wd_e, go_i, ge_i,
          dist_j, ok, start_j, end_j, j, budget_j) = x
+        # exact row gather: a float32 matmul against a one-hot matrix
+        # may run in TF32 on a GPU and round DP values
         ridx = jnp.mod(j - dist_j, K)              # (P,)
-        onehot = (
-            ridx[:, None] == jnp.arange(K)[None, :]
-        ).astype(jnp.float32)                      # (P, K)
-        Vp = jnp.where(ok[:, None], onehot @ Vr, BIG)
-        Dp = jnp.where(ok[:, None], onehot @ Dr, BIG)
+        Vp = jnp.where(ok[:, None], jnp.take(Vr, ridx, axis=0), BIG)
+        Dp = jnp.where(ok[:, None], jnp.take(Dr, ridx, axis=0), BIG)
 
         edge = start_j | (jnp.arange(M) == 0)
         base = jnp.where(edge, jnp.float32(1.0), BIG)

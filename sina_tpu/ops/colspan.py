@@ -8,7 +8,7 @@ window that must contain its alignment, so the dispatcher can slice
 the profile and run the DP on the window only.
 
 The reference has no equivalent (its per-sequence CPU DP pays the
-full lattice every time); this is a TPU-native throughput lever and
+full lattice every time); this is a throughput lever and
 must be *conservative*: a window that clips the true optimum changes
 results, so estimates derive from exact k-mer anchors against the
 family's top reference with generous indel slack, and callers fall

@@ -1,4 +1,4 @@
-"""POA reference graph, linearised for the TPU DP kernel.
+"""POA reference graph, linearised for the batched graph DP.
 
 Semantics follow mseq (/root/reference/src/mseq.cpp:46-118, mseq.h):
 one node per (alignment column, base) pair present in the family; node

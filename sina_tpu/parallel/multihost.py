@@ -5,11 +5,11 @@ processes over byte-range shards of one FASTA (--fasta-block /
 --fasta-idx, rw_fasta.cpp:209-242) plus the historical psina wrapper.
 sina-tpu keeps that input-sharding path (io/fasta.py) and adds the
 jax-native route: `jax.distributed.initialize` + a global mesh whose
-"mp" (index shard) axis rides ICI within a slice and "dp" (query
-batches) spans hosts, with each host reading its own --fasta-block.
+"mp" (index shard) axis stays within a host and "dp" (query batches)
+spans hosts, with each host reading its own --fasta-block.
 
-Untestable here (single chip available): exercised only through the
-virtual-device mesh; the entry point is kept minimal and documented.
+Tested with two CPU processes (tests/test_multihost.py); the entry
+point is kept minimal and documented.
 """
 
 from __future__ import annotations
@@ -26,8 +26,8 @@ def initialize(
 ) -> None:
     """Initialise jax.distributed for a multi-host run.
 
-    On TPU pods with standard metadata every argument is autodetected;
-    pass them explicitly otherwise.  Call before any jax usage, then
+    Where JAX's cluster detection applies (e.g. SLURM) every argument
+    is autodetected; pass them explicitly otherwise.  Call before any jax usage, then
     build the pipeline as usual: `parallel.sharding.make_mesh` sees
     all global devices.
     """

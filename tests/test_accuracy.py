@@ -99,7 +99,7 @@ def test_realign_leave_query_out(bundle):
 
 
 def test_realign_profile_engine(bundle):
-    """The TPU-default profile (pseq) engine: reference sps bar,
+    """The default profile (pseq) engine: reference sps bar,
     cpm within a documented epsilon of the graph engine (measured
     ~0.0003 vs the reference's 0.0002 — the column-profile collapse
     loses per-sequence succession information the DAG keeps)."""

@@ -81,7 +81,7 @@ def test_realign_bars_hold_on_fresh_seeds(seed):
 
 
 def test_realign_worst_case_profile_engine():
-    """Per-query floors for the TPU-default profile engine too (its
+    """Per-query floors for the default profile engine too (its
     aggregate epsilon is documented in test_accuracy.py)."""
     db = testing.make_reference_ltp(3000, seed=777)
     sps, cpm = _realign_metrics(db, engine="profile")

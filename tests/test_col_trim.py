@@ -1,6 +1,6 @@
 """Profile-DP column-window trimming (ops/colspan.py + align.py).
 
-Trimming is a TPU-native throughput lever for short-read (amplicon)
+Trimming is a throughput lever for short-read (amplicon)
 workloads; it must be behaviour-neutral — every test here asserts the
 trimmed alignment is IDENTICAL to the full-lattice one.
 """

@@ -1,15 +1,11 @@
 """Batching behaviour of the famfinder stage: reorientation rescore
 and constraint-escalation refetch must stay O(1) device calls per
-batch (VERDICT round-1 items 8/10), and the Pallas fallback must be
-loud (item 9)."""
-
-import logging
+batch."""
 
 import numpy as np
 import pytest
 
 from sina_tpu.famfinder import FamFinder, FamFinderConfig
-from sina_tpu.ops import kmer_kernel
 from sina_tpu.testing import make_reference, unaligned_copy
 
 
@@ -134,23 +130,6 @@ def test_duplicate_queries_submit_handle(db):
     names0 = [s.name for _, s in out[0].family]
     names8 = [s.name for _, s in out[8].family]
     assert names0 == names8
-
-
-def test_pallas_fallback_strict(monkeypatch):
-    monkeypatch.setenv("SINA_TPU_STRICT_PALLAS", "1")
-    with pytest.raises(ValueError, match="boom"):
-        kmer_kernel._pallas_failed(ValueError("boom"))
-
-
-def test_pallas_fallback_warns_once(monkeypatch, caplog):
-    monkeypatch.delenv("SINA_TPU_STRICT_PALLAS", raising=False)
-    monkeypatch.setattr(kmer_kernel, "_pallas_fallback_warned", False)
-    with caplog.at_level(logging.WARNING, logger="sina_tpu.kmer"):
-        kmer_kernel._pallas_failed(ValueError("boom"))
-        kmer_kernel._pallas_failed(ValueError("boom2"))
-    msgs = [r for r in caplog.records if "Pallas" in r.getMessage()]
-    assert len(msgs) == 1
-    assert "boom" in msgs[0].getMessage()
 
 
 def test_fast_policy_matches_object_path(db, monkeypatch):

@@ -116,15 +116,13 @@ def test_nofast_index(small_db):
 
 
 def test_packed_incidence_matches_dense():
-    """Bitpacked scoring == dense scoring (and the packed Pallas
-    kernel, interpret mode, == the packed XLA path)."""
+    """Bitpacked scoring == dense scoring."""
     import jax.numpy as jnp
 
     from sina_tpu import testing
     from sina_tpu.ops.kmer import query_kmers_padded
     from sina_tpu.ops.kmer_index import KmerIndex
     from sina_tpu.ops.kmer_kernel import (
-        kmer_scores_packed_pallas,
         kmer_scores_packed_xla,
         kmer_scores_xla,
     )
@@ -144,75 +142,3 @@ def test_packed_incidence_matches_dense():
     n = idx.n_seqs
     np.testing.assert_array_equal(packed[:, :n], dense[:, :n])
     assert (packed[:, n:] == 0).all()
-    pal = np.asarray(
-        kmer_scores_packed_pallas(
-            jnp.asarray(Pp), kmers, interpret=True
-        )
-    )
-    np.testing.assert_array_equal(pal, packed)
-
-
-def test_pallas_kmer_batch_chunking(monkeypatch):
-    """Batches whose scalar-prefetch kmer array would overflow SMEM
-    (1MB) split into chunks; results identical to the XLA path."""
-    import jax.numpy as jnp
-
-    from sina_tpu.ops import kmer_kernel as kk
-
-    monkeypatch.setattr(kk, "_SMEM_BUDGET", 128)  # bk=4 at L=8
-    rng = np.random.default_rng(0)
-    Pp = rng.integers(0, 256, (257, 16), dtype=np.uint8)
-    Pp[-1] = 0
-    kmers = rng.integers(0, 256, (13, 8), dtype=np.int32)
-    a = np.asarray(
-        kk.kmer_scores_packed_pallas(
-            jnp.asarray(Pp), jnp.asarray(kmers), interpret=True
-        )
-    )
-    b = np.asarray(
-        kk.kmer_scores_packed_xla(jnp.asarray(Pp), jnp.asarray(kmers))
-    )
-    np.testing.assert_array_equal(a, b)
-
-
-def test_tiled_layout_matches_packed_scores():
-    """The exact-size tiled (R, 32, W) matrix must score identically
-    to the 2D packed matrix in logical sequence order — via the XLA
-    reshape fallback AND the tiled Pallas kernel (interpret)."""
-    import numpy as np
-
-    from sina_tpu import testing
-    from sina_tpu.ops import kmer_kernel as kk
-    from sina_tpu.ops.kmer import query_kmers_padded
-    from sina_tpu.ops.kmer_index import KmerIndex
-
-    db = testing.make_reference(
-        n_seqs=300, n_core=200, width=360, seed=21
-    )
-    idx = KmerIndex.build(db, k=6, fast=False)
-    P2 = idx.dense_packed()
-    P3 = idx.dense_packed_tiled()
-    assert P3.shape[1] == 32 and P3.shape[2] % 128 == 0
-    # tiled is a row-major view of the (padded) packed bytes
-    np.testing.assert_array_equal(
-        P3.reshape(P3.shape[0], -1)[:, : P2.shape[1]], P2
-    )
-    queries = [
-        testing.unaligned_copy(q)
-        for q in testing.make_queries(db, n=8, seed=2)
-    ]
-    kmers, _ = query_kmers_padded(
-        [q.masks for q in queries], 6, fast=False, pad_to=64
-    )
-    ref = np.asarray(kk.kmer_scores_packed_xla(P2, kmers))
-    S = ref.shape[1]
-    got_xla = np.asarray(
-        kk.kmer_scores_packed_xla(P3.reshape(P3.shape[0], -1), kmers)
-    )
-    np.testing.assert_array_equal(got_xla[:, :S], ref)
-    assert (got_xla[:, S:] == 0).all()
-    got_pl = np.asarray(
-        kk.kmer_scores_packed_tiled_pallas(P3, kmers, interpret=True)
-    )
-    np.testing.assert_array_equal(got_pl[:, :S], ref)
-    assert (got_pl[:, S:] == 0).all()

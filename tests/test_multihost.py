@@ -1,4 +1,4 @@
-"""Real 2-process jax.distributed test (no TPU needed): spawns two
+"""Real 2-process jax.distributed test (CPU only): spawns two
 CPU processes with 4 virtual devices each, initialises the
 coordination service, runs the sharded k-mer search over the global
 (dp=2, mp=4) mesh, and checks the merged top-k against a
@@ -102,7 +102,6 @@ def test_multihost_cli_end_to_end(tmp_path):
         "PYTHONPATH", ""
     )
     env["JAX_PLATFORMS"] = "cpu"
-    env["SINA_TPU_PLATFORM"] = "cpu"
     env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
 
     # build fixture files

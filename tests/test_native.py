@@ -239,39 +239,6 @@ def test_native_fill_packed_matches_numpy():
     np.testing.assert_array_equal(P_native, P_np)
 
 
-def test_native_pack_graph_matches_numpy():
-    import numpy as np
-
-    from sina_tpu import native
-
-    rng = np.random.default_rng(3)
-    B, N, P = 4, 50, 8
-    preds = rng.integers(-1, 50, (B, N, P)).astype(np.int32)
-    is_start = (rng.random((B, N)) < 0.1).astype(np.uint8)
-    is_end = (rng.random((B, N)) < 0.1).astype(np.uint8)
-    n_real = rng.integers(10, N, B).astype(np.int64)
-    nat = native.pack_graph(preds, is_start, is_end, n_real)
-    assert nat is not None
-    predbits, flags = nat
-    nodeid = np.arange(N, dtype=np.int64)[None, :, None]
-    dist = nodeid - preds
-    okp = (preds >= 0) & (dist > 0) & (dist < 32)
-    bits = np.where(
-        okp,
-        np.left_shift(np.uint32(1), dist.astype(np.uint32),
-                      dtype=np.uint32),
-        np.uint32(0),
-    )
-    want_bits = np.bitwise_or.reduce(bits, axis=2).view(np.int32)
-    want_flags = (
-        is_start | (is_end << 1)
-        | ((np.arange(N)[None, :] < n_real[:, None]).astype(
-            np.uint8) << 2)
-    )
-    np.testing.assert_array_equal(predbits, want_bits)
-    np.testing.assert_array_equal(flags, want_flags)
-
-
 def test_native_build_graphs_matches_python(monkeypatch):
     import numpy as np
 

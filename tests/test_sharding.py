@@ -106,36 +106,33 @@ def midscale_index():
     return idx, kmers
 
 
-def test_sharded_tiled_matches_single_device(midscale_index):
-    """Mid-scale numerics parity of the tiled sharded path (VERDICT
-    r4 #2/#7): per-shard exact-size tiled blocks + grouped top-k +
-    all-gather merge vs the single-device packed oracle."""
+def test_sharded_midscale_matches_single_device(midscale_index):
+    """Mid-scale numerics parity of the sharded path: the famfinder
+    layout (packed bytes padded to an mp multiple) + per-shard top-k
+    + all-gather merge vs the single-device packed oracle."""
     idx, kmers = midscale_index
     mesh = make_mesh(jax.devices())
     mp = mesh.shape["mp"]
     k_top = 40
 
-    P3 = idx.dense_packed_tiled(byte_multiple=4096 * mp)
-    assert P3.shape[2] % (128 * mp) == 0
+    Pp = idx.dense_packed()
+    Sb = Pp.shape[1]
+    Pm = np.pad(Pp, ((0, 0), (0, -(-Sb // mp) * mp - Sb)))
     fn = sharded_search(mesh, k_top=k_top)
-    Pm = shard_index_matrix(mesh, P3)
-    vals, ids = fn(Pm, jnp.asarray(kmers))
+    vals, ids = fn(shard_index_matrix(mesh, Pm), jnp.asarray(kmers))
     vals, ids = np.asarray(vals), np.asarray(ids)
 
     from sina_tpu.ops.kmer_kernel import kmer_scores_packed_xla
 
-    Pp = idx.dense_packed()
     ref_scores = np.asarray(
         kmer_scores_packed_xla(jnp.asarray(Pp), jnp.asarray(kmers))
     )
     rv = np.asarray(
         jax.lax.top_k(jnp.asarray(ref_scores), k_top)[0]
     )
-    # grouped top-k + shard merge are value-exact
     np.testing.assert_array_equal(vals, rv)
     assert (vals > 0).all()
     # every returned id really achieves its score and is a real seq
-    S = ref_scores.shape[1]
     for b in range(vals.shape[0]):
         for j in range(k_top):
             i = ids[b, j]
